@@ -1,6 +1,6 @@
-"""droplet_visual_odometry_tpu — TPU-native monocular visual-odometry / SfM engine.
+"""droplet_visual_odometry_tpu — monocular visual-odometry / SfM engine in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the reference
+A JAX/XLA implementation of the capabilities of the reference
 ROS1/OpenCV pipeline (theivyzhang/droplet_visual_odometry): feature detection and
 matching, essential-matrix RANSAC pose recovery, fiducial-marker metric scale,
 AR-tag ground-truth extraction and TUM-format trajectory evaluation — plus a
@@ -15,7 +15,7 @@ Layer map (mirrors SURVEY.md §7):
   backend/     keyframes, windowed BA, pose graph         (new)
   eval/        TUM writers, ATE/RPE, stats, plots         (ref L5/L6)
   parallel/    mesh sharding, distributed Schur BA        (new)
-  ops/         Pallas TPU kernels
+  ops/         hand-written kernels (FAST via Pallas/Triton) + small-matrix linalg
   utils/       config, profiling, checkpointing
   cli/         experiment drivers
 """
@@ -23,9 +23,24 @@ Layer map (mirrors SURVEY.md §7):
 import jax as _jax
 
 # Geometry correctness first: pose chains, essential matrices and BA normal
-# equations are numerically fragile — never let f32 matmuls silently drop to
-# bf16 passes on the MXU. Throughput-critical kernels (descriptor matching,
-# image convolutions) opt back into bf16 explicitly where it is safe.
+# equations are numerically fragile — on a GPU an f32 matmul may otherwise run
+# in TF32 (about three decimal digits); "highest" keeps full f32. The
+# throughput-critical products opt into bf16 explicitly where it is safe:
+# descriptor steering (exact on integers, orb.py) and Hamming matching (exact
+# on +-1, orb.unpack_bits_pm1), and the pyramid resize (filters.py, f32
+# accumulation, not exact; the parity bounds cover it).
 _jax.config.update("jax_default_matmul_precision", "highest")
+
+# Source paths in MLIR locations relative to the checkout. The FAST kernel's
+# Triton IR carries its locations into the persistent compile cache's key, so
+# with absolute paths every checkout of the same commit would compile anew.
+if _jax.config.jax_hlo_source_file_canonicalization_regex is None:
+    import os as _os
+    import re as _re
+
+    _jax.config.update(
+        "jax_hlo_source_file_canonicalization_regex",
+        "^" + _re.escape(_os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))) + _os.sep),
+    )
 
 __version__ = "0.1.0"

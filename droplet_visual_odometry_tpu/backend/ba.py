@@ -4,12 +4,12 @@ NEW vs the reference (which chains per-pair poses with no optimization —
 SURVEY.md §5 'no keyframing, no windowed BA'); required by the north star
 (BASELINE.json configs 3-5).
 
-TPU-first design — everything is fixed shape and masked:
+Accelerator-first design — everything is fixed shape and masked:
   * A window holds W keyframe poses (cTw, world = first-keyframe/marker frame)
     and L landmarks, with a dense (W, L) observation grid + mask: the padded-
     sparsity strategy from SURVEY.md §7 hard-part #1. Real windows are small
     (W<=16), so the dense grid wastes little and every contraction is a clean
-    einsum the MXU can chew.
+    batched einsum.
   * Analytic Jacobians; normal-equation blocks built by batched einsum.
   * Schur complement on the landmark blocks: Hll is (L, 3, 3) batched-inverted
     with the fixed-cost unrolled Cholesky (ops/linalg.py); the reduced camera

@@ -30,7 +30,7 @@ so cost and memory are O(edges) and the Hessian-vector product
 
 is a gather / 6x6 batched matvec / scatter-add — exactly the unit that
 shards across a device mesh: `optimize(..., mesh=...)` splits the edge set
-over devices and psums the partial products over ICI (shard_map), with the
+over devices and psums the partial products across devices (shard_map), with the
 tiny (M, 6) CG state replicated. A dense Cholesky solve is kept as
 cfg.solver='dense' for cross-checking on small graphs.
 

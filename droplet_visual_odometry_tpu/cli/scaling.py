@@ -5,17 +5,17 @@
 
 Measures weak-scaling throughput of the data-parallel pair-VO stage (and,
 with --ba, distributed Schur-complement BA) over device meshes of increasing
-size — the north-star >=80%-efficiency check (BASELINE.md). On a multi-host
-slice, run one copy per host with the coordinator flags (or the JAX_* env
-vars); single-host/virtual-mesh runs need no flags.
+size — the north-star >=80%-efficiency check (BASELINE.md). The plain form
+(`--devices 1,2,4`) runs on whatever devices JAX sees, e.g. the four GPUs of
+one host. On several hosts, run one copy per host with the coordinator flags
+(or the JAX_* env vars); single-host runs need no flags.
 
-`--spawn N` orchestrates the whole comparison on one machine: it launches a
-1-process run and an N-process jax.distributed run (gloo collectives over a
-localhost coordinator — REAL cross-process boundary, the same bring-up
-tests/test_multiprocess.py proves correct) over the SAME total device count
-and workload, then reports cross-process efficiency = throughput_Nproc /
-throughput_1proc. This is the measured number for the >=80%-at-2+-hosts
-target on the process boundary itself (VERDICT r4 weak #2).
+`--spawn N` is a CPU-only harness: it launches a 1-process run and an
+N-process jax.distributed run, each child pinned to `--platform cpu` with
+virtual devices (gloo collectives over a localhost coordinator — a real
+cross-process boundary, the same bring-up tests/test_multiprocess.py proves
+correct) over the SAME total device count and workload, then reports
+cross-process efficiency = throughput_Nproc / throughput_1proc.
 """
 
 from __future__ import annotations

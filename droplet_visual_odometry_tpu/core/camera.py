@@ -1,11 +1,11 @@
-"""Camera model: pinhole intrinsics + plumb_bob distortion, TPU-native undistortion.
+"""Camera model: pinhole intrinsics + plumb_bob distortion, on-device undistortion.
 
 Replaces the reference's OpenCV camera frontend (visual_odometry_v3.py:110-135
 `cv.undistort` + `cv.getOptimalNewCameraMatrix`, and parse_camera_intrinsics at
 visual_odometry_v3.py:145-167 with its two YAML schemas selected by the
 `controlled` flag).
 
-TPU design: undistortion is a *precomputed remap grid* (computed once per camera,
+Design: undistortion is a *precomputed remap grid* (computed once per camera,
 host- or device-side) plus a batched bilinear gather — the gather is vmappable
 over frames and fuses into the frontend pipeline, instead of OpenCV's per-frame
 CPU remap.
@@ -19,7 +19,6 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-import yaml
 
 
 @jax.tree_util.register_dataclass
@@ -64,6 +63,8 @@ def load_calibration(path: str, controlled: bool = False) -> Camera:
     `controlled=True`: lab schema — `camera_matrix: {data: [...]}` /
     `distortion_coefficients: {data: [...]}` (visual_odometry_v3.py:155-167).
     """
+    import yaml
+
     with open(path) as f:
         data: dict[str, Any] = yaml.safe_load(f)
     if not controlled:

@@ -1,6 +1,6 @@
 """Pure-JAX SO(3)/SE(3) library — quaternions, euler angles, 4x4 transforms.
 
-TPU-native replacement for the reference's pose math layer
+Batched, jittable replacement for the reference's pose math layer
 (reference: scripts/pose_estimation_module.py:15-77, the thrice-duplicated
 rotation_matrix_to_quaternion at pose_estimation_module.py:31-57 /
 traj_eval_ground_truth.py:62-89, and the `tf.transformations` euler helpers used at

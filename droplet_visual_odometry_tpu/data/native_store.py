@@ -37,20 +37,22 @@ def _try_load() -> ctypes.CDLL | None:
             return _lib
         if _build_failed:
             return None
-        if not os.path.exists(_LIB_PATH):
-            if not os.path.isdir(_NATIVE_DIR) or shutil.which("make") is None:
-                _build_failed = True
-                return None
-            try:
-                subprocess.run(
-                    ["make", "-C", _NATIVE_DIR],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            except (subprocess.SubprocessError, OSError):
-                _build_failed = True
-                return None
+        # Always ask make: it does nothing when the library is newer than
+        # native/src, and rebuilds a stale one (e.g. copied in with the tree)
+        # so the committed source is what runs.
+        if not os.path.isdir(_NATIVE_DIR) or shutil.which("make") is None:
+            _build_failed = True
+            return None
+        try:
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR],
+                check=True,
+                capture_output=True,
+                timeout=120,
+            )
+        except (subprocess.SubprocessError, OSError):
+            _build_failed = True
+            return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)
         except OSError:
@@ -61,8 +63,7 @@ def _try_load() -> ctypes.CDLL | None:
         lib.vostore_read.restype = ctypes.c_int
         lib.vostore_prefetch_start.restype = ctypes.c_int
         lib.vostore_prefetch_next.restype = ctypes.c_int64
-        if hasattr(lib, "vostore_prefetch_acquire"):  # pre-r5 .so lacks it
-            lib.vostore_prefetch_acquire.restype = ctypes.c_int64
+        lib.vostore_prefetch_acquire.restype = ctypes.c_int64
         lib.vostore_pair_stamps.restype = ctypes.c_int64
         _lib = lib
         return _lib
@@ -170,11 +171,7 @@ class StoreReader:
         the next iteration — right for consumers that immediately forward the
         bytes (e.g. a host->device transfer), removing the copy-out memcpy
         that otherwise bounds warm-path throughput (tools/ingest_bench.py)."""
-        if (
-            self._handle is not None
-            and not copy
-            and hasattr(self._lib, "vostore_prefetch_acquire")
-        ):
+        if self._handle is not None and not copy:
             rc = self._lib.vostore_prefetch_start(
                 self._handle, ctypes.c_uint64(chunk), ctypes.c_uint64(nslots)
             )

@@ -1,4 +1,4 @@
-"""Sequence container + on-disk format: the TPU-native replacement for rosbag ingestion.
+"""Sequence container + on-disk format: the replacement for rosbag ingestion.
 
 The reference reads a ROS bag, collects `/camera_array/cam1/image_raw/compressed`
 images and `/stag_markers` detections, and pairs them by exactly-equal header

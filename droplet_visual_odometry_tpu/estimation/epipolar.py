@@ -1,7 +1,7 @@
 """Two-view epipolar geometry: batched 8-point essential matrices, Sampson
 error, and E -> (R, t) recovery with cheirality voting.
 
-TPU-native replacement for cv.findEssentialMat / cv.recoverPose
+Batched replacement for cv.findEssentialMat / cv.recoverPose
 (reference: visual_odometry_v3.py:297-306). OpenCV runs a sequential 5-point
 RANSAC in C++; here a *batch* of 8-point hypotheses is solved simultaneously —
 the normal-matrix build is one einsum, the null-space extraction one batched
@@ -81,7 +81,7 @@ def essential_8point(
     hartley=True.
 
     Uses fixed-cost inverse iteration + unrolled Cholesky instead of
-    jnp.linalg.eigh, whose TPU Jacobi loop hits worst-case iteration counts on
+    jnp.linalg.eigh, whose iterative solver hits worst-case iteration counts on
     exactly-rank-8 minimal-sample normal matrices (ops/linalg.py).
 
     eig_iters: inverse-iteration count. The RANSAC stage is LATENCY-bound on
@@ -127,10 +127,10 @@ def sampson_error(E: jax.Array, x1: jax.Array, x2: jax.Array) -> jax.Array:
 
     Structured as three clean 2-D dot_generals with (..., 3, N) / (..., N)
     outputs: the naive einsum formulation materialises (..., N, 3)
-    intermediates whose layout transposes dominated the whole RANSAC stage
-    on TPU (tools/ransac_bench.py) — the epipolar dot x2^T E x1 is instead
-    one (..., 9) x (9, N) matmul against the precomputable kron rows, and
-    the two gradient-norm terms keep the MXU-native (..., 3, N) layout.
+    intermediates whose layout transposes dominated the RANSAC stage —
+    the epipolar dot x2^T E x1 is instead one (..., 9) x (9, N) matmul
+    against the precomputable kron rows, and the two gradient-norm terms
+    keep the (..., 3, N) layout.
     Accumulation dtype follows the input (>= f32), so f64 callers under
     jax_enable_x64 keep full precision (advisor r4).
     """
@@ -207,7 +207,7 @@ def triangulate_two_view(
     A = jnp.concatenate([rows(P1, x1), rows(P2, x2)], axis=-2)  # (..., N, 4, 4)
     # Inhomogeneous DLT (fix w = 1): solve the 3x3 normal equations with the
     # fixed-cost unrolled Cholesky. Valid for finite points, which is all the
-    # cheirality vote needs; avoids TPU eigh's data-dependent Jacobi loop.
+    # cheirality vote needs; avoids eigh's data-dependent iteration count.
     M = A[..., :3]
     d = A[..., 3]
     MtM = jnp.einsum("...ki,...kj->...ij", M, M)

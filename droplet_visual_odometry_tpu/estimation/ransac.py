@@ -2,7 +2,7 @@
 
 Replaces cv.findEssentialMat(method=cv.RANSAC, prob=0.999, threshold=1.0)
 (reference: visual_odometry_v3.py:297-300). OpenCV iterates hypotheses
-sequentially with early exit; on TPU the winning design is breadth-first —
+sequentially with early exit; on an accelerator the design is breadth-first —
 sample B 8-point minimal sets at once, solve B essential matrices with one
 batched eigh, score all B x N Sampson errors with one einsum, argmax the
 inlier count, then polish with one weighted 8-point fit on the winner's
@@ -25,9 +25,8 @@ class RansacConfig:
     # 384 breadth-first 8-point hypotheses + a 128-sample fused LO round: at
     # VO-frontend inlier ratios (~70% after crosscheck matching) an all-inlier
     # 8-point draw lands ~22 times in 384, and the MSAC winner + LO rescue
-    # saturate accuracy (gate: the full five-scenario parity matrix, r5 —
-    # every verdict unchanged vs 512/256); the stage is ~30% cheaper again
-    # (tools/ransac_bench.py: hyp256_lo64 ties n_inliers at -32% cost).
+    # saturate accuracy (gate: the full five-scenario parity matrix —
+    # every verdict unchanged vs 512/256).
     n_hypotheses: int = 384
     sample_size: int = 8
     # Inlier threshold in PIXELS (converted to normalized coords via focal
@@ -72,8 +71,7 @@ def _sample_indices(
     """(B, sample_size) indices drawn uniformly from valid points, with
     replacement. Implemented as a packed index table (cumsum scatter) plus
     uniform draws: `jax.random.choice(..., p=mask)` lowers to a
-    searchsorted-per-draw program that measured 0.9 ms/frame on TPU — 40% of
-    the whole RANSAC stage — while this is three cheap vector ops.
+    searchsorted-per-draw program, while this is three cheap vector ops.
 
     Assumes n_valid < 2**24: (u * n_valid) is computed in float32, so beyond
     that the product quantizes and biases the draw (never out of bounds — the

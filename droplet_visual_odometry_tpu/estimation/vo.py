@@ -1,6 +1,6 @@
 """The visual-odometry core: two-frame relative pose + sequence chaining.
 
-TPU-native equivalent of the reference's VisualOdometry.visual_odometry_calculations
+Batched equivalent of the reference's VisualOdometry.visual_odometry_calculations
 (visual_odometry_v3.py:384-408) and the driver loop
 (trajectory_evaluation_dual_process.py:170-254), with two structural upgrades:
 
@@ -160,19 +160,44 @@ def run_sequence(
 ) -> VOTrajectory:
     """Frame-sequential VO over a whole sequence as one compiled program.
 
+    key: one PRNG key, split into one RANSAC key per pair; see
+    run_sequence_pair_keys for the rest.
+    """
+    pair_keys = jax.random.split(key, frames.shape[0] - 1)
+    return run_sequence_pair_keys(
+        pair_keys, frames, marker_corners, marker_present, init_pose, K,
+        real_marker_length, cfg, init_scale, init_scale_seen,
+    )
+
+
+@functools.partial(jax.jit, static_argnames=("cfg",))
+def run_sequence_pair_keys(
+    pair_keys: jax.Array,  # (N-1, 2) one RANSAC key per pair
+    frames: jax.Array,
+    marker_corners: jax.Array,
+    marker_present: jax.Array,
+    init_pose: jax.Array,
+    K: jax.Array,
+    real_marker_length: float,
+    cfg: VOConfig = VOConfig(),
+    init_scale: jax.Array | float = 1.0,
+    init_scale_seen: jax.Array | bool = False,
+) -> VOTrajectory:
+    """run_sequence with the per-pair keys given, so that a chunked run
+    (utils/checkpoint.py) draws the RANSAC samples the whole-sequence program
+    would for the same pairs.
+
     init_scale/init_scale_seen: carry for scale_mode='hold' across chunked
     runs (utils/checkpoint.py) — the last held scale of the previous chunk
     and whether any live scale has been seen yet.
 
     Structure: the frontend runs ONCE for the whole batch of frames (large
-    fused kernels / big MXU ops); the per-pair stage (match + RANSAC + scale)
+    fused kernels / big matrix products); the per-pair stage (match + RANSAC + scale)
     is data-parallel across all N-1 pairs (one vmap, not a lax.scan — pairs
     are independent given precomputed features); only the pose chaining
     abs_i = rel_i @ ... @ rel_1 @ abs_0 is sequential, and that is a prefix
     product — one associative_scan of 4x4 matmuls, O(log N) depth.
     """
-    n = frames.shape[0]
-
     all_feats = detect_and_describe_batch(
         frames,
         k=cfg.n_keypoints,
@@ -186,13 +211,12 @@ def run_sequence(
     feats_prev = jax.tree_util.tree_map(lambda a: a[:-1], all_feats)
     feats_curr = jax.tree_util.tree_map(lambda a: a[1:], all_feats)
     corners = jnp.nan_to_num(marker_corners)
-    keys = jax.random.split(key, n - 1)
 
     def pair(k, fp, fc, pc, cc, mv):
         return two_frame_vo(k, fp, fc, pc, cc, mv, K, real_marker_length, cfg)
 
     res = jax.vmap(pair)(
-        keys,
+        pair_keys,
         feats_prev,
         feats_curr,
         corners[:-1],

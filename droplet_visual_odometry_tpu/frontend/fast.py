@@ -1,12 +1,13 @@
 """FAST-9/16 corner detection as fixed-shape, whole-image XLA tensor ops.
 
-TPU-native replacement for the FAST stage inside cv.ORB_create().detectAndCompute
-(reference: visual_odometry_v3.py:96, 370-379). Instead of OpenCV's per-pixel
-early-exit C++ scalar code, every pixel is tested simultaneously: the 16
-Bresenham-circle neighbours become 16 shifted copies of the image (VPU-friendly
-elementwise masks), the contiguous-arc test is a short unrolled scan over a
-doubled boolean ring, NMS is a 3x3 max-pool, and the per-frame keypoint budget
-is a single top-k — all fixed shapes, all fusable by XLA, vmappable over frames.
+Data-parallel replacement for the FAST stage inside
+cv.ORB_create().detectAndCompute (reference: visual_odometry_v3.py:96,
+370-379). Instead of OpenCV's per-pixel early-exit C++ scalar code, every
+pixel is tested simultaneously: the 16 Bresenham-circle neighbours become 16
+shifted copies of the image (elementwise masks), the contiguous-arc test is
+a short unrolled scan over a doubled boolean ring, NMS is a 3x3 max-pool,
+and the per-frame keypoint budget is a single top-k — all fixed shapes, all
+fusable by XLA, vmappable over frames.
 """
 
 from __future__ import annotations
@@ -85,6 +86,19 @@ def fast_score(img: jax.Array, threshold: float = 20.0, arc_length: int = 9) -> 
     return jnp.where(is_corner & in_bounds, score, 0.0)
 
 
+def score_batch(imgs: jax.Array, threshold: float = 20.0, arc_length: int = 9) -> jax.Array:
+    """(N, H, W) frames -> (N, H, W) corner response.
+
+    On a GPU this is the fused Triton kernel (ops/pallas_fast.py); elsewhere
+    the XLA implementation above, frame by frame.
+    """
+    if jax.default_backend() == "gpu":
+        from droplet_visual_odometry_tpu.ops.pallas_fast import fast_score_batch
+
+        return fast_score_batch(imgs, threshold, arc_length)
+    return jax.vmap(lambda f: fast_score(f, threshold, arc_length))(imgs)
+
+
 def nms3x3(score: jax.Array) -> jax.Array:
     """Keep only local maxima in a 3x3 neighbourhood (ties keep both)."""
     m = jax.lax.reduce_window(
@@ -153,13 +167,13 @@ def select_topk_tiled(
     """Spatially-bucketed top-k: strongest `per_tile` corners per tile x tile
     block, then a global top-k over those candidates.
 
-    Replaces the flat lax.top_k over every pixel (H*W elements — the dominant
-    frontend cost at 1080p on TPU) with `per_tile` cheap max/argmax passes
-    over (n_tiles, tile*tile) plus a top-k over n_tiles*per_tile candidates —
-    a ~100x smaller sort. Selection differs from exact global top-k only when
-    a single tile holds more than `per_tile` of the global top-k after 3x3
-    NMS; the bucketing also spreads keypoints across the image (the same idea
-    as OpenCV's grid-adapted detectors), which helps pose stability.
+    Replaces the flat lax.top_k over every pixel (H*W elements) with
+    `per_tile` cheap max/argmax passes over (n_tiles, tile*tile) plus a
+    top-k over n_tiles*per_tile candidates — a ~100x smaller sort.
+    Selection differs from exact global top-k only when a single tile holds
+    more than `per_tile` of the global top-k after 3x3 NMS; the bucketing
+    also spreads keypoints across the image (the same idea as OpenCV's
+    grid-adapted detectors), which helps pose stability.
     """
     h, w = score_map.shape
     ph = (-h) % tile
@@ -200,12 +214,10 @@ def select_topk_rows(
     argmax passes), then a global top-k over H*per_row candidates.
 
     Functionally the same spatial-bucketing idea as select_topk_tiled, but
-    mapped to what the TPU does well: the tiled version's (th, 8, tw, 8) ->
-    (n_tiles, 64) relayout alone costs more than this entire routine (measured
-    0.26 vs 0.15 ms/frame at 1080p on v5e) because 8-element sublane/lane
-    shuffles fight the (8, 128) native tiling, while a lane-axis max/argmax is
-    a native VPU reduction. Rows are already NMS'd 3x3, and `per_row` caps
-    clustering along a row; the global top-k then ranks by response as before.
+    without the tiled version's (th, 8, tw, 8) -> (n_tiles, 64) relayout: a
+    per-row max/argmax reduces along the contiguous axis. Rows are already
+    NMS'd 3x3, and `per_row` caps clustering along a row; the global top-k
+    then ranks by response as before.
     """
     h, w = score_map.shape
     if per_row is None:
@@ -240,19 +252,6 @@ def select_topk_rows(
 
 
 def detect(img: jax.Array, k: int = 512, threshold: float = 20.0, arc_length: int = 9) -> Keypoints:
-    """FAST detect + NMS + top-k on one (H, W) frame. Jittable; vmap for batches.
-
-    The corner-response stage dispatches to the fused Pallas kernel on TPU
-    (ops/pallas_fast.py) and to the XLA implementation elsewhere.
-    """
-    from droplet_visual_odometry_tpu import ops
-
-    if ops.pallas_enabled():
-        from droplet_visual_odometry_tpu.ops.pallas_fast import fast_score_pallas
-
-        score = fast_score_pallas(
-            img, threshold, arc_length, interpret=ops.interpret_mode()
-        )
-    else:
-        score = fast_score(img, threshold, arc_length)
+    """FAST detect + NMS + top-k on one (H, W) frame. Jittable; vmap for batches."""
+    score = score_batch(img[None], threshold, arc_length)[0]
     return select_topk_rows(nms3x3(score), k)

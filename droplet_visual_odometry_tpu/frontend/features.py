@@ -6,9 +6,9 @@ per frame (the reference re-detects every frame twice per pair since pairs
 overlap, v3:387-392; our sequence pipeline carries features forward instead).
 
 Scale space: cv.ORB_create() detects over an 8-level 1.2x image pyramid
-(v3:96). The TPU-native equivalent here is a half-octave (sqrt(2)) pyramid
-with a per-level keypoint budget: each level is an antialiased resize of the
-previous one (two MXU weight matmuls — filters.resize_bilinear), detection,
+(v3:96). The fixed-shape equivalent here is a geometric pyramid with a
+per-level keypoint budget: each level is an antialiased resize of the
+previous one (two weight matmuls — filters.resize_bilinear), detection,
 NMS, top-k, blur and description all run at the level's resolution with the
 SAME fixed-shape kernels as level 0, and keypoint coordinates are mapped back
 to level-0 pixels. Per-level budgets follow OpenCV's nfeatures-per-level
@@ -47,7 +47,7 @@ def level_shapes(
 ) -> list[tuple[int, int]]:
     """Static per-level (H_l, W_l). Levels never shrink below 64 px per axis
     (or the input size if smaller): the descriptor patch is 37 px, and patch
-    origins must stay non-negative for the async-DMA extraction."""
+    origins must stay non-negative."""
     out = [(h, w)]
     for l in range(1, n_levels):
         s = scale_factor**l
@@ -72,18 +72,6 @@ def level_budgets(k: int, n_levels: int, scale_factor: float) -> list[int]:
     return ks
 
 
-def _score_batch(imgs: jax.Array, threshold: float, arc_length: int) -> jax.Array:
-    from droplet_visual_odometry_tpu import ops
-
-    if ops.pallas_enabled():
-        from droplet_visual_odometry_tpu.ops.pallas_fast import fast_score_pallas_batch
-
-        return fast_score_pallas_batch(
-            imgs, threshold, arc_length, interpret=ops.interpret_mode()
-        )
-    return jax.vmap(lambda f: fast.fast_score(f, threshold, arc_length))(imgs)
-
-
 def _orb_level(
     level_imgs: jax.Array,  # (N, H_l, W_l) float32
     k_level: int,
@@ -94,7 +82,7 @@ def _orb_level(
 ) -> Features:
     """Detect + describe one pyramid level; coords mapped to level-0 pixels."""
     n, lh, lw = level_imgs.shape
-    score = _score_batch(level_imgs, threshold, arc_length)
+    score = fast.score_batch(level_imgs, threshold, arc_length)
     kps = jax.vmap(lambda s: fast.select_topk_rows(fast.nms3x3(s), k_level))(score)
     blur = filters.gaussian_blur(
         level_imgs, sigma=2.0, radius=4, compute_dtype=jnp.bfloat16
@@ -151,10 +139,10 @@ def detect_and_describe_batch(
     'sift' — DoG blobs + 128-d float gradient histograms (L2, frontend/sift.py);
     'surf' — Hessian blobs + 64-d gradient descriptor (L2, frontend/surf.py).
 
-    Natively batched: each level's corner response is ONE Pallas launch over
-    an (N, rows) grid on TPU, the blur is one batched shift-and-add, and only
-    the small per-keypoint stages (top-k, patch DMA, descriptor matmul) are
-    per-level. n_levels=1 is exactly the round-1 single-scale frontend.
+    Natively batched: each level's corner response is ONE launch over all N
+    frames (fast.score_batch), the blur is one batched shift-and-add, and
+    only the small per-keypoint stages (top-k, patch gather, descriptor
+    matmul) are per-level. n_levels=1 is the single-scale frontend.
     """
     if mode == "sift":
         from droplet_visual_odometry_tpu.frontend import sift

@@ -1,7 +1,6 @@
 """Image filtering primitives: separable Gaussian blur and image pyramid.
 
-XLA convolutions map directly onto the TPU convolution units; separable 1-D
-passes keep the arithmetic intensity low-rank (2*k taps instead of k^2).
+Separable 1-D passes keep the work low-rank (2*k taps instead of k^2).
 Replaces the pyramid hidden inside cv.ORB_create's detectAndCompute
 (reference: visual_odometry_v3.py:96, 373).
 """
@@ -38,10 +37,9 @@ def gaussian_blur(
 ) -> jax.Array:
     """Separable Gaussian blur of (..., H, W) float images (edge-replicated).
 
-    Implemented as shift-and-add (2*(2r+1) scaled slice-adds on the VPU), NOT
-    as lax.conv: a single-channel conv cannot feed the MXU's 128x128 systolic
-    array and measured ~40 ms/frame at 1080p on v5e — the shift form is pure
-    elementwise bandwidth, ~100x faster.
+    Implemented as shift-and-add (2*(2r+1) scaled slice-adds), not as
+    lax.conv: the shift form is pure elementwise work that XLA fuses into
+    one pass per axis.
 
     compute_dtype=bfloat16 halves the HBM traffic of this bandwidth-bound
     stage (output cast back to the input dtype). Right for consumers that
@@ -93,12 +91,11 @@ def _resize_weights(n_in: int, n_out: int):
 def resize_bilinear(img: jax.Array, new_h: int, new_w: int) -> jax.Array:
     """Antialiased linear resize of (..., H, W) to (..., new_h, new_w).
 
-    Two separable weight matmuls (one per spatial axis) — MXU work, not
-    gathers — which is the right TPU shape for the pyramid's non-integer
-    scale steps. Runs in bfloat16 with f32 accumulation: 2x the MXU rate and
-    half the HBM traffic of f32, and pixel values 0..255 round to <=0.5
-    intensity (far below the FAST threshold of 20), so detection/description
-    downstream are unaffected.
+    Two separable weight matmuls (one per spatial axis) rather than gathers,
+    for the pyramid's non-integer scale steps. Runs in bfloat16 with f32
+    accumulation (not exact): half the memory traffic of f32, and pixel
+    values 0..255 round to <=0.5 intensity (far below the FAST threshold of
+    20), so detection/description downstream are unaffected.
     """
     h, w = img.shape[-2], img.shape[-1]
     Wh = jnp.asarray(_resize_weights(h, new_h), jnp.bfloat16)

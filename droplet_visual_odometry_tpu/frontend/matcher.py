@@ -1,14 +1,14 @@
-"""Descriptor matching: Hamming distances on the MXU + cross-check/ratio tests.
+"""Descriptor matching: Hamming distances as a matrix product + cross-check/ratio tests.
 
 Replaces cv.BFMatcher(NORM_HAMMING, crossCheck)/FLANN knnMatch + Lowe ratio
 (reference: visual_odometry_v3.py:75, 191-239). The O(K^2) distance matrix —
 OpenCV's scalar XOR/popcount loop — becomes one 256-deep matmul of +-1-expanded
-descriptors on the systolic array: dot(a, b) = 256 - 2*hamming(a, b), exact in
+descriptors on the tensor cores: dot(a, b) = 256 - 2*hamming(a, b), exact in
 bf16 x bf16 -> f32. Mutual-best cross-check and the Lowe ratio test are
 fixed-shape argmin/top-k reductions.
 
 All matchers return fixed-shape (K,) per-query results with a validity mask —
-the TPU analog of OpenCV's variable-length DMatch lists.
+the fixed-shape analog of OpenCV's variable-length DMatch lists.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def l2_matrix(
 ) -> jax.Array:
     """(Ka, D) x (Kb, D) FLOAT descriptors -> (Ka, Kb) squared-L2 distances.
 
-    |a-b|^2 = |a|^2 + |b|^2 - 2 a.b: one MXU matmul + rank-1 corrections —
+    |a-b|^2 = |a|^2 + |b|^2 - 2 a.b: one matrix product + rank-1 corrections —
     the float-mode twin of hamming_matrix for SIFT-style descriptors
     (the reference's SIFT/KNN modes, v3:100-104, 223-230).
     """
@@ -107,13 +107,7 @@ def match(
     max_distance: float = 256.0,
 ) -> Matches:
     """One-call matcher. mode: 'crosscheck' (reference 'orb') or 'ratio'
-    (reference 'sift'/'knn_sift' Lowe test).
-
-    On TPU (and equal keypoint budgets) the distance matrix + reductions run
-    as one fused Pallas kernel (ops/pallas_match.py); elsewhere via XLA.
-    """
-    from droplet_visual_odometry_tpu import ops
-
+    (reference 'sift'/'knn_sift' Lowe test)."""
     if jnp.issubdtype(desc_a.dtype, jnp.floating):
         # Float (SIFT-mode) descriptors: squared-L2 distance matrix. Ratio
         # thresholds are specified on true distances, so square them here.
@@ -122,25 +116,6 @@ def match(
             return match_crosscheck(dist, max_distance=BIG / 2)
         if mode == "ratio":
             return match_ratio(dist, ratio=ratio * ratio, max_distance=BIG / 2)
-        raise ValueError(f"unknown match mode: {mode}")
-
-    if ops.pallas_match_enabled() and desc_a.shape[0] == desc_b.shape[0]:
-        from droplet_visual_odometry_tpu.ops.pallas_match import match_reductions
-
-        ka = desc_a.shape[0]
-        ones = jnp.ones((ka,), jnp.float32)
-        va = ones if valid_a is None else valid_a
-        vb = ones if valid_b is None else valid_b
-        d1, i1, d2, col_best = match_reductions(
-            desc_a, desc_b, va, vb, interpret=ops.interpret_mode()
-        )
-        if mode == "crosscheck":
-            rows = jnp.arange(ka, dtype=i1.dtype)
-            ok = (col_best[i1] == rows) & (d1 <= max_distance) & (d1 < BIG)
-            return Matches(idx=i1, distance=d1, valid=ok)
-        if mode == "ratio":
-            ok = (d1 < ratio * d2) & (d1 <= max_distance) & (d1 < BIG)
-            return Matches(idx=i1, distance=d1, valid=ok)
         raise ValueError(f"unknown match mode: {mode}")
 
     dist = hamming_matrix(desc_a, desc_b, valid_a, valid_b)

@@ -1,4 +1,4 @@
-"""Rotation-aware binary (rBRIEF-style) descriptors, fully batched for TPU.
+"""Rotation-aware binary (rBRIEF-style) descriptors, fully batched.
 
 Replaces the descriptor half of cv.ORB_create().detectAndCompute
 (reference: visual_odometry_v3.py:96, 370-379). Design:
@@ -12,24 +12,16 @@ Replaces the descriptor half of cv.ORB_create().detectAndCompute
   * Steering: the pattern is pre-rotated into ANGLE_BINS discrete orientations
     (OpenCV quantises to 12 degrees as well).
 
-TPU mapping — the whole per-keypoint stage is ONE MXU matmul. Measured facts
-that force this shape (TPU v5e, 1080p, 24 frames x 512 keypoints):
-
-  * Scalar-element gathers run at ~70M elem/s on TPU regardless of index
-    pattern — sampling 512 pixels per keypoint via gather costs ~90 ms, and
-    gathering whole patches ~250 ms. Gathers are NOT how you read patches.
-  * Per-keypoint dynamic_slice lowers to a serial HLO while loop (~30 ms for
-    the 37x37 patch extraction) — tolerable, and the only gather-ish op kept.
-  * A (12288, 1369) @ (1369, 7682) bf16 matmul runs in ~5 ms on the MXU.
-
-So: extract each keypoint's 37x37 patch once, then multiply by a constant
-steering matrix whose columns are [disc moment weights wy, wx] ++ [for each
-angle bin, 256 columns of (+1 at rotated sample p2, -1 at rotated sample p1)].
-The sign of column (b, j) is exactly the BRIEF test p1 < p2 under rotation bin
-b; the keypoint's bin (from the moment columns of the same matmul) selects the
-256 relevant columns with a one-hot contraction. Bits are packed 256 -> 8
-uint32 words by a log-tree of pairwise or/shift combines (a flat 32-way
-shift+reduce is a ~25 ms-class op on TPU at this size).
+The whole per-keypoint stage is one patch gather plus ONE matrix product:
+extract each keypoint's 37x37 patch once (a batched dynamic_slice), then
+multiply by a constant steering matrix whose columns are [disc moment weights
+wy, wx] ++ [for each angle bin, 256 columns of (+1 at rotated sample p2, -1
+at rotated sample p1)]. Sampling 512 scattered pixels per keypoint by scalar
+gathers is avoided; the product runs on the tensor cores in bf16 with f32
+accumulation. The sign of column (b, j) is exactly the BRIEF test p1 < p2
+under rotation bin b; the keypoint's bin (from the moment columns of the same
+product) selects the 256 relevant columns with a one-hot contraction. Bits are
+packed 256 -> 8 uint32 words by a log-tree of pairwise or/shift combines.
 
 Everything is fixed-shape: K keypoints in, (K, 8) uint32 descriptors out, with
 a validity mask.
@@ -144,46 +136,22 @@ def describe_batch(
     """(N, H, W) blurred frames + (N, K, 2) keypoints -> packed descriptors.
 
     Returns ((N, K, 8) uint32 descriptors, (N, K) angles). See the module
-    docstring for why this is one patch-extraction pass + one MXU matmul.
+    docstring for why this is one patch-extraction pass + one matrix product.
     """
     n, h, w = imgs_blur.shape
     k = xy.shape[1]
     imgs_blur = imgs_blur.astype(jnp.float32)
 
-    from droplet_visual_odometry_tpu import ops
-
-    if ops.pallas_patches_enabled():
-        # Batched async-DMA patch reads (ops/pallas_patches.py) — the XLA
-        # lowering of vmap(dynamic_slice) is a serial HLO while loop.
-        from droplet_visual_odometry_tpu.ops.pallas_patches import (
-            extract_patches_pallas,
-        )
-
-        ij = jnp.stack([xy[..., 1], xy[..., 0]], axis=-1)  # (N, K) row, col
-        ij = jnp.round(ij).astype(jnp.int32) - HALF
-        ij = jnp.clip(ij, 0, jnp.asarray([h - PATCH, w - PATCH]))
-        fidx = jnp.broadcast_to(
-            jnp.arange(n, dtype=jnp.int32)[:, None], (n, k)
-        )
-        origins = jnp.concatenate(
-            [fidx.reshape(n * k, 1), ij.reshape(n * k, 2)], axis=-1
-        )
-        patches = extract_patches_pallas(
-            imgs_blur, origins, interpret=ops.interpret_mode()
-        )  # (N*K, PATCH, PATCH)
-        flat_p = patches.reshape(n * k, PATCH * PATCH)
-    else:
-        patches = jax.vmap(extract_patches)(imgs_blur, xy)  # (N, K, P, P)
-        flat_p = patches.reshape(n * k, PATCH * PATCH)
+    patches = jax.vmap(extract_patches)(imgs_blur, xy)  # (N, K, P, P)
+    flat_p = patches.reshape(n * k, PATCH * PATCH)
 
     # Exact single bf16 matmul: quantise blurred pixels to integers first —
     # every integer in [0, 256] is exactly representable in bfloat16 (7+1
     # mantissa bits), and the steering weights are small integers, so products
-    # are exact and accumulate in f32 on the MXU. A bf16 pass on UNROUNDED
-    # pixels flips ~10/256 near-tie bits (measured, round 1) which previously
-    # forced a hi/lo two-matmul split; rounding the patch once removes the
-    # ties deterministically (both sides of every match see the same rounded
-    # image) at half the MXU and HBM cost.
+    # are exact and accumulate in f32. A bf16 product on UNROUNDED pixels
+    # flips ~10/256 near-tie bits, which would force a hi/lo two-product
+    # split; rounding the patch once removes the ties deterministically (both
+    # sides of every match see the same rounded image) at half the cost.
     q = jnp.round(flat_p).astype(jnp.bfloat16)
     feats = jnp.dot(q, _STEER_W, preferred_element_type=jnp.float32)
     # (NK, 2 + 30*256) f32
@@ -240,9 +208,9 @@ class Features(NamedTuple):
 def unpack_bits_pm1(desc: jax.Array, dtype=jnp.bfloat16) -> jax.Array:
     """(K, 8) uint32 -> (K, 256) in {-1, +1}.
 
-    The +-1 expansion turns Hamming distance into an MXU matmul:
+    The +-1 expansion turns Hamming distance into a matrix product:
     dot(a, b) = 256 - 2*hamming(a, b). Products of +-1 are exact in bf16 and
-    accumulate in f32 on the MXU, so this path is bit-exact and speed-of-light.
+    accumulate in f32 on the tensor cores, so this path is bit-exact.
     """
     shifts = jnp.arange(32, dtype=jnp.uint32)
     bits = (desc[..., :, None] >> shifts[None, None, :]) & jnp.uint32(1)

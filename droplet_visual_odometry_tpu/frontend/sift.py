@@ -1,11 +1,11 @@
 """Float-descriptor (SIFT-mode) frontend — scale-space blobs + gradient
-histograms, fully batched for TPU.
+histograms, fully batched.
 
 The reference switches feature modes by string: 'orb' vs 'sift'/'knn_sift'
 (cv.SIFT_create) and 'surf' (cv.SURF_create(400)) at
 visual_odometry_v3.py:93-107, with Lowe-ratio KNN matching for the float
 modes (v3:223-230). This module supplies the float-descriptor capability the
-TPU way — capability parity, not an OpenCV clone:
+batched way — capability parity, not an OpenCV clone:
 
   * detector: difference-of-Gaussians blob response |DoG| at a mid scale,
     3x3 NMS + top-k (fixed K) — scale-space extrema as whole-image tensor
@@ -16,14 +16,14 @@ TPU way — capability parity, not an OpenCV clone:
     discrete-angle-bin trick of the binary frontend (orb.py:56-74): the
     sample grid is pre-rotated into ANGLE_BINS orientations and the keypoint
     picks its bin;
-  * histogram accumulation is two one-hot contractions on the MXU (positions
+  * histogram accumulation is two one-hot contractions (positions
     -> cells is a static matrix; positions -> orientation bins is computed
     per keypoint), instead of scatter-adds.
 
-Matching uses matcher.match on float descriptors (L2-squared via one MXU
-matmul). The reference pairs SIFT with NORM_L1 brute force (v3:101-104) — an
-arbitrary metric choice there; L2 is the standard SIFT metric and maps to the
-systolic array, so that is what we build.
+Matching uses matcher.match on float descriptors (L2-squared via one
+matrix product). The reference pairs SIFT with NORM_L1 brute force (v3:101-104) — an
+arbitrary metric choice there; L2 is the standard SIFT metric and maps to a
+matrix product, so that is what we build.
 """
 
 from __future__ import annotations
@@ -162,7 +162,7 @@ def describe(img_blur: jax.Array, kps: Keypoints) -> tuple[jax.Array, jax.Array]
     obin = jnp.mod(jnp.floor((theta + jnp.pi) / (two_pi / N_ORI)), N_ORI).astype(jnp.int32)
     ori_onehot = jax.nn.one_hot(obin, N_ORI, dtype=jnp.float32)  # (K, 256, 8)
 
-    # positions->cells (static) x positions->orientations (dynamic): MXU.
+    # positions->cells (static) x positions->orientations (dynamic): one product.
     desc = jnp.einsum(
         "kp,pc,kpo->kco", mag, _CELL_ONEHOT, ori_onehot, precision="highest"
     ).reshape(-1, N_DIM)

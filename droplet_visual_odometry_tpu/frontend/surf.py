@@ -2,7 +2,7 @@
 
 Completes the reference's three-way feature-mode switch — 'orb' / 'sift' /
 'surf' (cv.xfeatures2d.SURF_create(400) at visual_odometry_v3.py:102-107).
-Capability parity the TPU way, not an OpenCV clone:
+Capability parity the batched way, not an OpenCV clone:
 
   * detector: scale-normalised determinant-of-Hessian response
     det(H) = Lxx*Lyy - (0.9*Lxy)^2 (the 0.9 is Bay's box-filter correction
@@ -14,9 +14,9 @@ Capability parity the TPU way, not an OpenCV clone:
     sum dy, sum |dy|) of oriented gradient samples over a rotated 16x16 grid.
     Rotation reuses the discrete-angle-bin pre-rotated grid of the SIFT
     frontend (sift.py:75-95); the cell accumulation is the same static
-    one-hot MXU contraction. L2-normalised (SURF's contrast invariance).
+    one-hot contraction. L2-normalised (SURF's contrast invariance).
 
-Matching: float descriptors -> matcher.l2_matrix (one MXU matmul) with the
+Matching: float descriptors -> matcher.l2_matrix (one matrix product) with the
 Lowe ratio test, the reference's float-mode matcher shape (v3:223-230).
 """
 
@@ -108,7 +108,7 @@ def describe(img_blur: jax.Array, kps: Keypoints) -> tuple[jax.Array, jax.Array]
     rgx = (c * sgx + s * sgy) * _SPATIAL_W[None, :]
     rgy = (-s * sgx + c * sgy) * _SPATIAL_W[None, :]
 
-    # Per-cell (sum dx, sum |dx|, sum dy, sum |dy|): one MXU contraction per
+    # Per-cell (sum dx, sum |dx|, sum dy, sum |dy|): one contraction per
     # channel against the static position->cell matrix.
     chans = jnp.stack([rgx, jnp.abs(rgx), rgy, jnp.abs(rgy)], axis=-1)  # (K,256,4)
     desc = jnp.einsum("kpc,pm->kmc", chans, _CELL_ONEHOT, precision="highest")

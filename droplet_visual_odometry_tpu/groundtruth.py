@@ -1,4 +1,4 @@
-"""Fiducial-marker ground truth — TPU-native rebuild of reference layer L4.
+"""Fiducial-marker ground truth — batched rebuild of reference layer L4.
 
 The reference (`scripts/traj_eval_ground_truth.py`) converts STag marker
 detections into camera_T_marker 4x4 poses one message at a time, with a fixed

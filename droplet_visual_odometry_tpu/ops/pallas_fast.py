@@ -1,19 +1,18 @@
-"""Pallas TPU kernel: fused FAST-N corner response.
+"""Pallas kernel (Triton route): fused FAST-N corner response.
 
-The XLA implementation (frontend/fast.py:fast_score) materialises a
-(16, H, W) stack of shifted images plus brighter/darker masks — at the
-reference's 1440x1080 resolution (camera_calibration.yaml:22-23) that is
-hundreds of MB of HBM traffic per frame. This kernel streams the image through
-VMEM once per row-tile: the 16 Bresenham-circle neighbours are static row
-slices of a 3-row halo (y) and in-register lane rolls (x), the doubled-ring
-contiguous-arc scan and the score accumulation run entirely on the VPU, and
-only the final (H, W) score map is written back. HBM traffic drops to
-read-once + write-once — the bandwidth speed-of-light for this op.
+The XLA implementation (frontend/fast.py:fast_score) expresses the response
+as a (16, H, W) stack of shifted images plus brighter/darker masks and a
+31-step run-length scan; whether that stack reaches device memory is up to
+XLA's fusion. This kernel computes the response per output tile directly:
+each of the 16 Bresenham-circle neighbours is one masked `load` at a static
+offset from the tile origin in a 3-px zero-padded frame (L1/L2 absorb the
+halo reuse between neighbouring tiles), the polarity tests are packed into
+one 16-bit integer ring per polarity, the contiguous-arc test is a log-step
+AND-doubling on that ring, and the score is written once.
 
-Grid: one program per TILE_H-row stripe. The input lives in HBM/ANY; each
-program DMAs its stripe + halo into VMEM scratch (per pallas_guide.md async
-DMA pattern). x-wraparound from the lane roll only corrupts a 3-pixel border
-that the FAST border mask excludes anyway (same argument as fast.py:30-38).
+Grid: (frame, row block, column block). Blocks are powers of two; the tile
+overhang at the far edges of non-multiple level shapes (1091x826, ...) is
+masked on load and on store.
 """
 
 from __future__ import annotations
@@ -23,209 +22,146 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from droplet_visual_odometry_tpu.frontend.fast import BORDER, CIRCLE_OFFSETS
 
-TILE_H = 64  # 128-row tiles blow the 16MB scoped-VMEM budget at W=1536 (unrolled scan live set)
-LANE = 128
+# From a sweep on an H100 at 24x1080x1440 (PERF.md): 8x128 tiles ran in
+# 0.93 ms, and tiles of 4096+ pixels with 4 warps in 14-19 ms (too many live
+# values per thread for the registers).
+BLOCK_H = 8
+BLOCK_W = 128
+NUM_WARPS = 8
+NUM_STAGES = 1
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+def _rot16(v: jax.Array, k: int) -> jax.Array:
+    """Cyclic rotate of the 16-bit ring: bit j of the result = bit j+k of v."""
+    return ((v >> k) | (v << (16 - k))) & 0xFFFF
 
 
-HALO = 8  # halo rows each side; 8-row aligned so the DMA slice tiles cleanly
+def has_arc(v: jax.Array, arc_length: int) -> jax.Array:
+    """True where the packed 16-bit ring holds a cyclic run of >= arc_length
+    set bits.
+
+    Log-step AND-doubling: r &= rot(r, k) doubles the run length each step,
+    then arc_length is composed from its binary digits — ~20 integer ops
+    instead of a 32-step sequential run-length scan. Equivalent to
+    max_circular_run >= L for any L <= 16.
+    """
+    pows = {1: v}
+    k = 1
+    while k * 2 <= arc_length:
+        pows[k * 2] = pows[k] & _rot16(pows[k], k)
+        k *= 2
+    run = None
+    off = 0
+    for bit in (16, 8, 4, 2, 1):
+        if arc_length & bit:
+            term = _rot16(pows[bit], off) if off else pows[bit]
+            run = term if run is None else run & term
+            off += bit
+    return run != 0
 
 
-def _kernel(img_ref, out_ref, scratch, sem, *, tile_h, w_pad, h_orig, w_orig, threshold, arc_length):
-    n = pl.program_id(0)  # frame index (batch grid dim; 1 for single frames)
-    i = pl.program_id(1)
-    row0 = i * tile_h
-    # img_ref holds HALO extra rows top+bottom: stripe rows [row0, row0+tile_h)
-    # of the output need padded rows [row0, row0 + tile_h + 2*HALO). Both the
-    # start (multiple of tile_h) and length are 8-row aligned — a Mosaic
-    # requirement for VMEM memref slices (sublane tiling).
-    dma = pltpu.make_async_copy(
-        img_ref.at[n, pl.ds(pl.multiple_of(row0, tile_h), tile_h + 2 * HALO)],
-        scratch,
-        sem,
-    )
-    dma.start()
-    dma.wait()
+def _kernel(img_ref, out_ref, *, h, w, block_h, block_w, threshold, arc_length):
+    # img_ref: this frame's (h + 6, w + 6) zero-padded image; out_ref: (h, w).
+    r0 = pl.program_id(1) * block_h
+    c0 = pl.program_id(2) * block_w
+    rows = r0 + jax.lax.broadcasted_iota(jnp.int32, (block_h, block_w), 0)
+    cols = c0 + jax.lax.broadcasted_iota(jnp.int32, (block_h, block_w), 1)
+    in_tile = (rows < h) & (cols < w)
 
-    center = scratch[HALO : HALO + tile_h, :]
+    def load(dy, dx):
+        # Output pixel (y, x) sits at (y + 3, x + 3) in the padded frame, so
+        # every neighbour offset is non-negative; only the overhang is masked.
+        return plgpu.load(
+            img_ref.at[
+                pl.ds(r0 + BORDER + dy, block_h), pl.ds(c0 + BORDER + dx, block_w)
+            ],
+            mask=in_tile,
+            other=0.0,
+        )
 
-    def neighbour(j):
-        dy, dx = CIRCLE_OFFSETS[j]
-        rows = scratch[HALO + dy : HALO + dy + tile_h, :]
-        return pltpu.roll(rows, (-dx) % w_pad, axis=1)
-
-    zeros_f = jnp.zeros((tile_h, w_pad), jnp.float32)
-    zeros_i = jnp.zeros((tile_h, w_pad), jnp.int32)
-    score_b = zeros_f
-    score_d = zeros_f
-    pack_b = zeros_i
-    pack_d = zeros_i
-    # One pass over the 16 circle neighbours: each roll happens ONCE (the
-    # doubled-ring scan formulation rolled every neighbour twice). The 16
-    # polarity bits pack into ONE int32 ring per polarity per pixel — the
-    # whole kernel's live set is four accumulator arrays, no spill.
-    for j in range(16):
-        nbr = neighbour(j)
+    center = load(0, 0)
+    score_b = jnp.zeros((block_h, block_w), jnp.float32)
+    score_d = jnp.zeros((block_h, block_w), jnp.float32)
+    pack_b = jnp.zeros((block_h, block_w), jnp.int32)
+    pack_d = jnp.zeros((block_h, block_w), jnp.int32)
+    for j, (dy, dx) in enumerate(CIRCLE_OFFSETS):
+        nbr = load(dy, dx)
         bj = nbr > center + threshold
         dj = nbr < center - threshold
         excess = jnp.abs(nbr - center) - threshold
         score_b = score_b + jnp.where(bj, excess, 0.0)
         score_d = score_d + jnp.where(dj, excess, 0.0)
-        bit = jnp.int32(1 << j)
-        pack_b = pack_b | jnp.where(bj, bit, 0)
-        pack_d = pack_d | jnp.where(dj, bit, 0)
+        pack_b = pack_b | jnp.where(bj, 1 << j, 0)
+        pack_d = pack_d | jnp.where(dj, 1 << j, 0)
 
-    mask16 = jnp.int32(0xFFFF)
-
-    def rot(v, k):
-        # Cyclic rotate of the 16-bit ring: bit j of rot(v, k) = bit j+k of v.
-        return ((v >> k) | (v << (16 - k))) & mask16
-
-    def has_arc(v):
-        """Exists a cyclic run of >= arc_length consecutive set bits.
-
-        Log-step AND-doubling on the packed ring: r &= rot(r, k) doubles the
-        run length each step, then arc_length is composed from its binary
-        digits — ~20 int ops instead of a 32-step sequential run-length scan.
-        Equivalent to max_circular_run >= L for any L <= 16.
-        """
-        pows = {1: v}
-        k = 1
-        while k * 2 <= arc_length:
-            pows[k * 2] = pows[k] & rot(pows[k], k)
-            k *= 2
-        run = None
-        off = 0
-        for bit in (16, 8, 4, 2, 1):
-            if arc_length & bit:
-                term = rot(pows[bit], off) if off else pows[bit]
-                run = term if run is None else run & term
-                off += bit
-        return run != 0
-
-    is_corner = has_arc(pack_b) | has_arc(pack_d)
-    score = jnp.maximum(score_b, score_d)
-
-    yy = jax.lax.broadcasted_iota(jnp.int32, (tile_h, w_pad), 0) + row0
-    xx = jax.lax.broadcasted_iota(jnp.int32, (tile_h, w_pad), 1)
-    in_bounds = (
-        (yy >= BORDER)
-        & (yy < h_orig - BORDER)
-        & (xx >= BORDER)
-        & (xx < w_orig - BORDER)
+    is_corner = has_arc(pack_b, arc_length) | has_arc(pack_d, arc_length)
+    interior = (
+        (rows >= BORDER) & (rows < h - BORDER) & (cols >= BORDER) & (cols < w - BORDER)
     )
-    out_ref[0] = jnp.where(is_corner & in_bounds, score, 0.0)
+    score = jnp.where(is_corner & interior, jnp.maximum(score_b, score_d), 0.0)
+    plgpu.store(
+        out_ref.at[pl.ds(r0, block_h), pl.ds(c0, block_w)], score, mask=in_tile
+    )
+
+
+def _fast_score_impl(imgs, threshold, arc_length, block_h, block_w, num_warps, num_stages, interpret):
+    n, h, w = imgs.shape
+    padded = jnp.pad(imgs, ((0, 0), (BORDER, BORDER), (BORDER, BORDER)))
+    grid = (n, pl.cdiv(h, block_h), pl.cdiv(w, block_w))
+    return pl.pallas_call(
+        functools.partial(
+            _kernel,
+            h=h,
+            w=w,
+            block_h=block_h,
+            block_w=block_w,
+            threshold=threshold,
+            arc_length=arc_length,
+        ),
+        out_shape=jax.ShapeDtypeStruct((n, h, w), jnp.float32),
+        grid=grid,
+        in_specs=[pl.BlockSpec((None, h + 2 * BORDER, w + 2 * BORDER), lambda f, i, j: (f, 0, 0))],
+        out_specs=pl.BlockSpec((None, h, w), lambda f, i, j: (f, 0, 0)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=num_stages),
+        interpret=interpret,
+        name="fast_score_triton",
+    )(padded)
 
 
 @functools.lru_cache(maxsize=None)
-def _batch_fn(threshold: float, arc_length: int, tile_h: int, interpret: bool):
-    """(N, H, W) kernel wrapper with a custom vmap rule.
-
-    `jax.vmap` over a `pallas_call` auto-batches by prepending a blocked grid
-    dimension to every BlockSpec — but our input spec is a whole-array
-    `memory_space=ANY` ref (the kernel DMAs its own stripes), and Mosaic
-    rejects ANY-space blocks with non-trivial index maps. The batch axis IS
-    the kernel's leading grid dimension already, so the vmap rule just folds
-    the new batch axis into N and recurses (nested vmaps fold one at a time).
-    """
+def _batch_fn(threshold, arc_length, block_h, block_w, num_warps, num_stages, interpret):
+    """(N, H, W) kernel wrapper with a custom vmap rule: the batch axis is the
+    kernel's leading grid dimension already, so a vmap folds its axis into N
+    (nested vmaps fold one at a time) instead of adding a grid dimension."""
 
     @jax.custom_batching.custom_vmap
     def run(imgs):
-        return _fast_score_impl(imgs, threshold, arc_length, tile_h, interpret)
+        return _fast_score_impl(
+            imgs, threshold, arc_length, block_h, block_w, num_warps, num_stages, interpret
+        )
 
     @run.def_vmap
     def _rule(axis_size, in_batched, imgs):  # noqa: ANN001
         if not in_batched[0]:
-            # imgs is an unbatched (broadcast) operand alongside some other
-            # mapped input: compute once and report the output unbatched.
             return run(imgs), False
         b, n, h, w = imgs.shape
-        out = run(imgs.reshape(b * n, h, w))
-        return out.reshape(b, n, h, w), True
+        return run(imgs.reshape(b * n, h, w)).reshape(b, n, h, w), True
 
     return run
 
 
-@functools.partial(
-    jax.jit, static_argnames=("threshold", "arc_length", "tile_h", "interpret")
-)
-def fast_score_pallas_batch(
-    imgs: jax.Array,
-    threshold: float = 20.0,
-    arc_length: int = 9,
-    tile_h: int = TILE_H,
-    interpret: bool = False,
+def fast_score_batch(
+    imgs: jax.Array, threshold: float = 20.0, arc_length: int = 9, *, interpret: bool = False
 ) -> jax.Array:
-    """Batched corner response: (N, H, W) float -> (N, H, W) float32.
-
-    The batch rides as the leading grid dimension (one program per frame per
-    row stripe), so whole-sequence frontends issue ONE kernel launch — and
-    `jax.vmap` folds into that same grid dimension (see `_batch_fn`) instead
-    of tripping Mosaic's batched-BlockSpec limits.
-    """
-    return _batch_fn(float(threshold), int(arc_length), int(tile_h), bool(interpret))(
-        imgs.astype(jnp.float32)
+    """(N, H, W) float -> (N, H, W) float32 corner response, matching
+    frontend.fast.fast_score frame by frame (0 for non-corners). The tiling
+    is the module's BLOCK_H/BLOCK_W/NUM_WARPS/NUM_STAGES, read at trace time."""
+    fn = _batch_fn(
+        float(threshold), int(arc_length), BLOCK_H, BLOCK_W, NUM_WARPS, NUM_STAGES, bool(interpret)
     )
-
-
-def _fast_score_impl(
-    imgs: jax.Array,
-    threshold: float,
-    arc_length: int,
-    tile_h: int,
-    interpret: bool,
-) -> jax.Array:
-    n, h, w = imgs.shape
-    h_pad = _round_up(h, tile_h)
-    w_pad = _round_up(w, LANE)
-    # Edge-replicate pad to tile multiples + HALO rows top/bottom.
-    padded = jnp.pad(
-        imgs, ((0, 0), (HALO, h_pad - h + HALO), (0, w_pad - w)), mode="edge"
-    )
-    grid = (n, h_pad // tile_h)
-    out = pl.pallas_call(
-        functools.partial(
-            _kernel,
-            tile_h=tile_h,
-            w_pad=w_pad,
-            h_orig=h,
-            w_orig=w,
-            threshold=float(threshold),
-            arc_length=int(arc_length),
-        ),
-        grid=grid,
-        out_shape=jax.ShapeDtypeStruct((n, h_pad, w_pad), jnp.float32),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec(
-            (1, tile_h, w_pad), lambda ni, i: (ni, i, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((tile_h + 2 * HALO, w_pad), jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        interpret=interpret,
-    )(padded)
-    return out[:, :h, :w]
-
-
-def fast_score_pallas(
-    img: jax.Array,
-    threshold: float = 20.0,
-    arc_length: int = 9,
-    tile_h: int = TILE_H,
-    interpret: bool = False,
-) -> jax.Array:
-    """Drop-in for frontend.fast.fast_score, bit-matching its semantics.
-
-    (H, W) float -> (H, W) float32 corner response (0 for non-corners).
-    """
-    return fast_score_pallas_batch(
-        img[None], threshold, arc_length, tile_h, interpret
-    )[0]
+    return fn(imgs.astype(jnp.float32))

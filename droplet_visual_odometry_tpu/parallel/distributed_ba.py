@@ -7,8 +7,8 @@ Schur-complement reduction via collectives. Design (SURVEY.md §7 stage 7):
     observation columns. Landmark blocks (Hll, bl, dx) never leave their chip.
   * Keyframe poses are replicated (a window is small). Each device computes its
     partial reduced-camera contributions Sum_l Hcl Hll^-1 Hlc and Sum_l ...,
-    which are combined with one psum over the mesh axis — the all-reduce rides
-    the ICI; the reduced (6W x 6W) solve is then replicated on every device.
+    which are combined with one psum over the mesh axis (an all-reduce over
+    NVLink between GPUs); the reduced (6W x 6W) solve is then replicated on every device.
   * The whole LM loop (cost evaluation via psum, accept/reject) lives inside
     ONE shard_map'ed jitted function: no host round-trips per iteration.
 

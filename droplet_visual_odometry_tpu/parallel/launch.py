@@ -1,15 +1,15 @@
 """Multi-host launch scaffolding + scaling-efficiency measurement.
 
 The reference is a single-process pipeline with ROS pub/sub as its only IPC
-(SURVEY.md §5 'distributed communication backend: absent'). The TPU-native
-scaling model is jax.distributed: one process per host, devices discovered
-globally, meshes spanning the pod slice, collectives over ICI within a slice
-and DCN across hosts. This module owns:
+(SURVEY.md §5 'distributed communication backend: absent'). The scaling
+model here is jax.distributed: one process per host, devices discovered
+globally, meshes spanning all hosts' GPUs, collectives over NVLink within a
+host (NCCL) and the network across hosts. This module owns:
 
   * `initialize()` — process bring-up: jax.distributed.initialize from
     explicit args or the standard env vars (COORDINATOR_ADDRESS etc.);
     idempotent and a no-op for single-process runs, so the same entry point
-    serves a laptop, one TPU host, and a multi-host slice.
+    serves a laptop, one GPU host, and a multi-host cluster.
   * `global_mesh()` — host-count-aware mesh over ALL addressable devices
     (hosts x local chips flattened to the requested axes).
   * `measure_scaling()` — the north-star harness (BASELINE.md: >=80%
@@ -46,8 +46,8 @@ def initialize(
     multi-process mode was initialized, False for single-process.
 
     Args default from the conventional env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID); on TPU pods jax.distributed can also
-    autodetect all three. Safe to call twice (second call is a no-op).
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID). Without a cluster manager to detect,
+    all three must be given. Safe to call twice (second call is a no-op).
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
@@ -61,8 +61,8 @@ def initialize(
         return False  # single-process: nothing to initialize
 
     # Multi-process on the CPU backend (virtual-mesh testing / CI) needs an
-    # explicit cross-process collectives implementation; TPU slices use the
-    # native ICI/DCN path and ignore this.
+    # explicit cross-process collectives implementation; GPUs use NCCL and
+    # ignore this.
     platforms = jax.config.jax_platforms or os.environ.get("JAX_PLATFORMS", "")
     if str(platforms).startswith("cpu"):
         try:

@@ -2,7 +2,7 @@
 
 The reference has no parallelism of any kind (SURVEY.md §2: single-process,
 frame-sequential; the only concurrency is ROS callback scheduling). The
-TPU-native scaling model replaces that with jax.sharding over a device mesh:
+scaling model here is jax.sharding over a device mesh:
 
   * `frames` axis — embarrassingly data-parallel work (frontend feature
     extraction, pair-wise matching + RANSAC over many frame pairs at once,
@@ -14,7 +14,7 @@ TPU-native scaling model replaces that with jax.sharding over a device mesh:
     blocks with psum — see backend/distributed_ba.py.
 
 All entry points take an explicit Mesh so tests can run them on the 8-device
-virtual CPU mesh (tests/conftest.py) while production uses the pod slice.
+virtual CPU mesh (tests/conftest.py) while production uses the host's GPUs.
 """
 
 from __future__ import annotations

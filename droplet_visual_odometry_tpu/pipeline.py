@@ -1,4 +1,4 @@
-"""End-to-end experiment pipeline: the reference driver, TPU-native.
+"""End-to-end experiment pipeline: the reference driver, on the accelerator.
 
 Equivalent of UnitTestingExtractData (trajectory_evaluation_dual_process.py:31-91,
 170-254): take a paired sequence, derive the marker ground-truth streams, run

@@ -4,8 +4,8 @@ The reference has no compute checkpointing: a crash mid-bag loses the whole
 run and the append-mode txt logs are truncated on restart
 (pose_estimation_module.py:80-91; SURVEY.md §5). Here the sequence is driven
 in fixed-size chunks of one compiled `lax.scan` each, with the carry state
-(next frame index, last absolute pose, accumulated trajectory streams, PRNG
-key) persisted to an .npz after every chunk via atomic write-and-rename, so a
+(next frame index, last absolute pose, held scale, accumulated trajectory
+streams) persisted to an .npz after every chunk via atomic write-and-rename, so a
 25k-frame run (v3:20) resumes from the last completed chunk.
 
 This is also the STREAMING engine for the reference's own sequence scale
@@ -17,10 +17,9 @@ DEVICE inside the loop via the `preprocess` callable, so a 1440x1080 x 25k
 sequence needs ~chunk x 6 MB of HBM instead of ~150 GB
 (VERDICT r2 missing #1). `path=None` streams without persistence.
 
-Chunking note: chunk boundaries re-derive the per-pair PRNG keys by folding
-the chunk start index into the run key, so results are reproducible for a
-given chunk size (and RANSAC is vote-based, so trajectories are insensitive
-to the key stream in practice).
+Chunking note: the run key is split into one key per pair up front, and each
+chunk gets the slice for its pairs, so a chunked run draws the same RANSAC
+samples as the whole-sequence program whatever the chunk size.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from droplet_visual_odometry_tpu.estimation.vo import VOConfig, VOTrajectory, run_sequence
+from droplet_visual_odometry_tpu.estimation.vo import VOConfig, VOTrajectory, run_sequence_pair_keys
 
 _FIELDS = ("abs_poses", "rel_poses", "n_matches", "n_inliers", "scales", "scale_ok", "ok")
 
@@ -89,7 +88,7 @@ def run_sequence_checkpointed(
     n = int(frames.shape[0])
     if n < 2:
         raise ValueError("need at least 2 frames")
-    key = jax.device_get(key)
+    pair_keys = np.asarray(jax.random.split(key, n - 1))
     if preprocess is None:
         preprocess = lambda c: jnp.asarray(np.asarray(c), jnp.float32)
 
@@ -113,20 +112,21 @@ def run_sequence_checkpointed(
         # final partial chunk is PADDED to the full chunk shape (repeat the
         # last frame, marker-absent) so the whole run reuses ONE compiled
         # program — a trailing remainder otherwise costs a second full
-        # compile (~1 min on a TPU) for its one odd shape. Padded pairs are
-        # sliced off below before anything observes them.
+        # compile for its one odd shape. Padded pairs are sliced off below
+        # before anything observes them.
         n_frames_real = stop - (start - 1)
         fr = np.asarray(frames[start - 1 : stop])
         mc = np.asarray(marker_corners[start - 1 : stop])
         mp = np.asarray(marker_present[start - 1 : stop])
+        ks = pair_keys[start - 1 : stop - 1]
         pad = (chunk + 1) - n_frames_real
         if pad > 0:
             fr = np.concatenate([fr, np.repeat(fr[-1:], pad, axis=0)])
             mc = np.concatenate([mc, np.repeat(mc[-1:], pad, axis=0)])
             mp = np.concatenate([mp, np.zeros(pad, bool)])
-        ck = jax.random.fold_in(jnp.asarray(key), start)
-        traj = run_sequence(
-            ck,
+            ks = np.concatenate([ks, np.repeat(ks[-1:], pad, axis=0)])
+        traj = run_sequence_pair_keys(
+            jnp.asarray(ks),
             preprocess(fr),
             jnp.asarray(mc),
             jnp.asarray(mp),
@@ -163,7 +163,6 @@ def run_sequence_checkpointed(
                     "abs_last": abs_last,
                     "scale_last": np.asarray(scale_last),
                     "scale_seen": np.asarray(scale_seen),
-                    "key": np.asarray(key),
                     **{f: np.concatenate(acc[f], axis=0) for f in _FIELDS},
                 },
             )

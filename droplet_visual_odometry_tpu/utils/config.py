@@ -12,8 +12,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import yaml
-
 from droplet_visual_odometry_tpu.estimation.ransac import RansacConfig
 from droplet_visual_odometry_tpu.estimation.vo import VOConfig
 
@@ -68,10 +66,14 @@ def _from_dict(cls, d: dict):
 
 
 def to_yaml(cfg: ExperimentConfig) -> str:
+    import yaml
+
     return yaml.safe_dump(_to_dict(cfg), sort_keys=False)
 
 
 def from_yaml(text: str) -> ExperimentConfig:
+    import yaml
+
     data = yaml.safe_load(text) or {}
     return _from_dict(ExperimentConfig, data)
 

@@ -4,7 +4,7 @@ The reference's only diagnostics are print statements and a frame counter
 (SURVEY.md §5; visual_odometry_v3.py:125, 267-290). Here: a process-wide stage
 timer registry (device-synchronised so wall times mean what they say under
 async dispatch), a frames/s helper for the north-star metric, and a thin
-wrapper over `jax.profiler.trace` for XLA/TPU timeline captures.
+wrapper over `jax.profiler.trace` for device timeline captures.
 """
 
 from __future__ import annotations

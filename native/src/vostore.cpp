@@ -1,6 +1,6 @@
 // vostore — native sequence store + prefetching reader for the VO pipeline.
 //
-// TPU-native equivalent of the reference's rosbag ingestion layer
+// Native equivalent of the reference's rosbag ingestion layer
 // (scripts/get_valid_message_stream.py:21-68 reads a ROS .bag through the
 // C++-backed rosbag API; image decode happens in OpenCV C++ via
 // cv.imdecode, visual_odometry_v3.py:115-135). Here the recorded-sequence

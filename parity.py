@@ -303,22 +303,23 @@ def _marker_gap(seq, start: int, stop: int):
     return dataclasses.replace(seq, marker_present=present, marker_corners=corners)
 
 
-def scenarios(quick: bool = False):
+def scenarios(quick: bool = False, names=None):
+    """The parity scenarios by name; `names` renders only those listed."""
     from droplet_visual_odometry_tpu.data import synthetic
 
     n1 = 30 if quick else 60
     n2 = 60 if quick else 200
     base = synthetic.SyntheticConfig(n_frames=n1, width=640, height=480)
-    out = {
-        "clean": synthetic.render_sequence(base),
-        "corner_noise_1px": _corner_jitter(
+    build = {
+        "clean": lambda: synthetic.render_sequence(base),
+        "corner_noise_1px": lambda: _corner_jitter(
             synthetic.render_sequence(dataclasses.replace(base, seed=2)), 1.0
         ),
         # Multi-seed (see run_scenario): the reference's single wide-baseline
         # gap step has a seed-luck-sized error that can cancel its drift, so
         # one seed cannot decide this scenario; the verdict is the 3-seed
         # mean. Quick mode keeps one seed.
-        "marker_gap": [
+        "marker_gap": lambda: [
             _marker_gap(
                 synthetic.render_sequence(dataclasses.replace(base, seed=sd)),
                 n1 // 3,
@@ -326,7 +327,7 @@ def scenarios(quick: bool = False):
             )
             for sd in ((3,) if quick else (3, 13, 23))
         ],
-        "drift_loop": synthetic.render_sequence(
+        "drift_loop": lambda: synthetic.render_sequence(
             dataclasses.replace(
                 base, n_frames=n2, seed=4, loop=True, orbit_sweep=0.9, dolly=0.3
             )
@@ -337,7 +338,7 @@ def scenarios(quick: bool = False):
         # full undistortion legs (ReferenceVO._rectify == v3:110-135 /
         # pipeline.make_preprocessor) — the only scenario that exercises the
         # per-frame rectification path end-to-end on both sides.
-        "distorted_1440": synthetic.render_sequence(
+        "distorted_1440": lambda: synthetic.render_sequence(
             dataclasses.replace(
                 base,
                 n_frames=n1,
@@ -356,7 +357,7 @@ def scenarios(quick: bool = False):
             )
         ),
     }
-    return out
+    return {name: make() for name, make in build.items() if names is None or name in names}
 
 
 def evaluate(seq, present_idx, est_abs):
@@ -539,14 +540,12 @@ def main(argv=None) -> int:
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    from droplet_visual_odometry_tpu.utils.device import machine_cache_dir
+    from droplet_visual_odometry_tpu.utils.device import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", machine_cache_dir())
+    enable_compile_cache()
 
     results = {}
-    scen = scenarios(args.quick)
-    if args.scenario:
-        scen = {args.scenario: scen[args.scenario]}
+    scen = scenarios(args.quick, names=[args.scenario] if args.scenario else None)
     for name, seq in scen.items():
         print(f"scenario {name}...", file=sys.stderr, flush=True)
         results[name] = run_scenario(name, seq, quick=args.quick)

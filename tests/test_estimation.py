@@ -126,7 +126,7 @@ class TestRansac:
         p1, p2, R, t, _ = synthetic_pair(200, outlier_frac=outlier_frac, noise_px=0.3, seed=5)
         key = jax.random.PRNGKey(0)
         # 8-point minimal samples at 50% outliers need breadth: P(clean) = 0.4%,
-        # so use 4096 hypotheses (still one batched solve on TPU).
+        # so use 4096 hypotheses (still one batched solve).
         cfg = ransac.RansacConfig(n_hypotheses=4096)
         Rr, tr, res = ransac.ransac_pose(
             key, jnp.asarray(p1), jnp.asarray(p2), jnp.ones(200, bool), jnp.asarray(K), cfg
